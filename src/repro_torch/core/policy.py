@@ -1,0 +1,323 @@
+"""Scheduling-policy protocol, shared Algorithm 1/2 state machines, and the
+name-based policy registry (DESIGN.md §3).
+
+One ``SchedulingPolicy`` object carries *both* faces of a scheduling
+approach:
+
+  * the **simulator face** — the hook surface the event-driven engine
+    (`core/engine.py`) drives: job releases/completions, GPU-segment
+    boundaries, runlist-update pieces, CPU-winner notifications, and the
+    resource-arbitration queries (``gpu_owner``, ``effective_priority``,
+    ``next_gpu_event``);
+  * the **runtime face** — the hook surface ``repro_torch.sched.executor.
+    DeviceExecutor`` drives with real threads and wall-clock time:
+    ``runtime_on_start/complete``, ``runtime_segment_begin/end``,
+    ``runtime_admitted``, ``runtime_poll``.
+
+Both faces resolve admission through the *same* state machines below
+(``Alg2State`` for the IOCTL approach's Algorithm 2, ``pick_reserved`` for
+the kernel-thread approach's Algorithm 1), so the analysis-side model and
+the driver-side implementation cannot drift apart — the divergence GCAPS
+(arXiv:2406.05221) warns about.
+
+The registry maps approach names ("unmanaged", "sync_priority",
+"sync_fifo", "kthread", "ioctl", ...) to policy factories plus the RTA
+functions that provide the approach's analytic guarantee.  `simulate()`,
+`benchmarks/run.py`, and `DeviceExecutor` all resolve policies here, so a
+newly registered policy is immediately available in all three.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import (Callable, Dict, Iterable, List, Optional, Sequence,
+                    Tuple)
+
+
+
+# --------------------------------------------------------------------------
+# duck-typed job accessors: simulator Jobs carry a .task, runtime RTJobs
+# carry the fields directly — the shared state machines accept either.
+# --------------------------------------------------------------------------
+
+def job_is_rt(j) -> bool:
+    task = getattr(j, "task", None)
+    return task.is_rt if task is not None else j.is_rt
+
+
+def job_gpu_priority(j) -> int:
+    """GPU/device-segment priority (Sec. V-C), falling back to the base
+    priority for jobs without a distinct device priority."""
+    task = getattr(j, "task", None)
+    if task is not None:
+        return task.gpu_priority
+    return getattr(j, "device_priority", j.priority)
+
+
+def job_priority(j) -> int:
+    task = getattr(j, "task", None)
+    return task.priority if task is not None else j.priority
+
+
+# --------------------------------------------------------------------------
+# Algorithm 1 (kernel-thread approach): job-granular device reservation
+# --------------------------------------------------------------------------
+
+def pick_reserved(candidates: Iterable) -> Optional[object]:
+    """Line 4 of Algorithm 1: the highest-GPU-priority real-time candidate,
+    or None when no real-time task is eligible (best-effort round-robin).
+
+    Callers pre-filter ``candidates`` to the jobs that are *eligible* in
+    their domain (ready + GPU-using in the simulator; active in the
+    runtime executor, where every admitted job may dispatch programs)."""
+    rt = [j for j in candidates if job_is_rt(j)]
+    if not rt:
+        return None
+    return max(rt, key=job_gpu_priority)
+
+
+# --------------------------------------------------------------------------
+# Algorithm 2 (IOCTL approach): task_running / task_pending admission
+# --------------------------------------------------------------------------
+
+class Alg2State:
+    """The two disjoint lists of Algorithm 2 and its add/remove procedure.
+
+    This is the single implementation backing both the simulator's
+    ``IoctlPolicy`` and the runtime executor's notify mode.  One deviation
+    from the paper's verbatim pseudo-code (noted in `core/ioctl.py`): on
+    removal with no pending real-time task we take the *union* of
+    task_running and task_pending rather than overwriting, so best-effort
+    TSGs that stayed in task_running are not dropped.
+
+    ``on_enter_running`` / ``on_leave_running`` are optional callbacks for
+    domain-specific bookkeeping (the simulator maintains best-effort TSG
+    round-robin membership through them)."""
+
+    def __init__(self,
+                 on_enter_running: Optional[Callable] = None,
+                 on_leave_running: Optional[Callable] = None):
+        self.running: List = []   # task_running
+        self.pending: List = []   # task_pending
+        self._enter = on_enter_running
+        self._leave = on_leave_running
+
+    # -- membership helpers -------------------------------------------------
+    def _to_running(self, job) -> None:
+        if job not in self.running:
+            self.running.append(job)
+        job.gpu_pending = False
+        if self._enter:
+            self._enter(job)
+
+    def _from_running(self, job) -> None:
+        if job in self.running:
+            self.running.remove(job)
+        if self._leave:
+            self._leave(job)
+
+    def _to_pending(self, job) -> None:
+        self.pending.append(job)
+        job.gpu_pending = True
+
+    def top_running(self):
+        return max(self.running, key=job_gpu_priority, default=None)
+
+    # -- Algorithm 2 --------------------------------------------------------
+    def add(self, job) -> bool:
+        """begin() IOCTL (lines 6-17).  Returns True iff the task_running
+        membership changed (the costly runlist-rewrite mode)."""
+        before = list(self.running)
+        if not job_is_rt(job):                      # lines 6-10
+            if not any(job_is_rt(j) for j in self.running):
+                self._to_running(job)
+            else:
+                self._to_pending(job)
+        else:                                       # lines 11-17
+            tau_h = self.top_running()
+            if tau_h is None or job_gpu_priority(job) > job_gpu_priority(tau_h):
+                self._to_running(job)
+                if tau_h is not None and job_is_rt(tau_h):
+                    self._from_running(tau_h)       # preempt tau_h
+                    self._to_pending(tau_h)
+                elif tau_h is not None:
+                    # best-effort members are displaced as well
+                    for be in [j for j in self.running
+                               if j is not job and not job_is_rt(j)]:
+                        self._from_running(be)
+                        self._to_pending(be)
+            else:
+                self._to_pending(job)
+        return {id(j) for j in before} != {id(j) for j in self.running}
+
+    def remove(self, job) -> bool:
+        """end() IOCTL (lines 18-25).  Returns True iff task_running
+        membership changed.
+
+        A caller that never reached task_running (cancelled, or its
+        segment body errored while still in task_pending — the runtime's
+        ``device_segment.__exit__`` still issues the end() call) is just
+        dropped from task_pending: the paper's handover (lines 19-22)
+        assumes the *departing* task held the runlist, and running it for
+        a pending caller would admit a second RT program next to the
+        current holder (found by tests/test_policy_fuzz.py; unreachable
+        in the simulator, where ge pieces only execute once admitted)."""
+        if job not in self.running:
+            if job in self.pending:
+                self.pending.remove(job)
+                job.gpu_pending = False
+            return False
+        before = list(self.running)
+        rt_pend = [j for j in self.pending if job_is_rt(j)]
+        if rt_pend:
+            tau_k = max(rt_pend, key=job_gpu_priority)
+            self.pending.remove(tau_k)
+            self._to_running(tau_k)
+            self._from_running(job)
+        else:
+            self._from_running(job)
+            # paper: task_running <- task_pending (union, see docstring)
+            for j in list(self.pending):
+                self.pending.remove(j)
+                self._to_running(j)
+        return {id(j) for j in before} != {id(j) for j in self.running}
+
+    def discard(self, job) -> None:
+        """Defensive cleanup on job completion (a well-formed job has
+        already issued its end() calls)."""
+        if job in self.running:
+            self._from_running(job)
+        if job in self.pending:
+            self.pending.remove(job)
+
+
+# --------------------------------------------------------------------------
+# the policy protocol
+# --------------------------------------------------------------------------
+
+class SchedulingPolicy:
+    """Interface shared by the simulator engine and the runtime executor.
+
+    All hooks are optional; the base class admits everything and owns
+    nothing.  ``device`` is the index of the accelerator this instance
+    arbitrates — the engine creates one instance per device and routes
+    job-scoped hooks by ``job.task.device`` (DESIGN.md §4)."""
+
+    name = "base"
+    needs_ioctl_pieces = False   # insert `upd` pieces around GPU segments
+    requires_busy_wait = False   # self-suspension breaks state detection
+    wants_poll_thread = False    # runtime: spawn a scheduler/kernel thread
+    needs_segment_hooks = False  # runtime: device_segment drives admission
+    recheck_winners_after_notify = False  # a rewrite may block a CPU core
+    device = 0
+
+    # ---- simulator face ---------------------------------------------------
+    def attach(self, sim: "Simulator") -> None:
+        self.sim = sim
+
+    def on_job_release(self, job: "Job") -> None: ...
+    def on_job_complete(self, job: "Job") -> None: ...
+    def on_segment_begin(self, job: "Job") -> None: ...
+    def on_ge_complete(self, job: "Job") -> None: ...
+    def on_update_done(self, job: "Job", which: str) -> None: ...
+    def begin_update(self, job: "Job", piece) -> None: ...
+    def notify_winners(self, winners) -> None: ...
+
+    def try_acquire(self, job: "Job") -> bool:
+        return True
+
+    def gpu_owner(self) -> Optional["Job"]:
+        raise NotImplementedError
+
+    def gpu_rr_advance(self, dt: float) -> None: ...
+
+    def next_gpu_event(self) -> float:
+        return float("inf")
+
+    def effective_priority(self, job: "Job") -> int:
+        return job.task.priority
+
+    def cpu_blocked(self, job: "Job") -> bool:
+        """True if the job cannot use the CPU now (policy-specific)."""
+        return False
+
+    def occupied_cores(self) -> Tuple[int, ...]:
+        """Cores consumed outright by the policy's own machinery (e.g. the
+        kernel thread mid-rewrite)."""
+        return ()
+
+    # ---- runtime face (driven by sched.executor.DeviceExecutor) ----------
+    def runtime_attach(self, executor) -> None:
+        self.executor = executor
+
+    def runtime_on_start(self, job) -> None: ...
+    def runtime_on_complete(self, job) -> None: ...
+
+    def runtime_segment_begin(self, job) -> bool:
+        """device_segment entry.  Returns True iff the admission state was
+        rewritten (the costly IOCTL mode — priced as epsilon)."""
+        return False
+
+    def runtime_segment_end(self, job) -> bool:
+        return False
+
+    def runtime_admitted(self, job) -> bool:
+        return True
+
+    def runtime_poll(self, active_jobs: Sequence) -> bool:
+        """Periodic scheduler-thread evaluation (Algorithm 1 realization).
+        Returns True iff the reservation changed (a runlist rewrite)."""
+        return self.runtime_apply(self.runtime_pick(active_jobs))
+
+    def runtime_pick(self, active_jobs: Sequence):
+        """Scheduling decision of one poll tick (pure; not timed)."""
+        return None
+
+    def runtime_apply(self, decision) -> bool:
+        """Apply a poll decision — the runlist-rewrite part, which the
+        executor times as an epsilon sample.  Returns True iff changed."""
+        return False
+
+
+# --------------------------------------------------------------------------
+# registry
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class PolicySpec:
+    """Registry entry: how to build the policy and which analyses price it.
+
+    ``rtas`` maps wait modes ("busy"/"suspend") to the response-time
+    analysis providing the approach's schedulability guarantee; approaches
+    without an analytic guarantee (unmanaged) leave it empty."""
+    name: str
+    factory: Callable[..., SchedulingPolicy]
+    description: str = ""
+    rtas: Dict[str, Callable] = field(default_factory=dict)
+
+
+_REGISTRY: Dict[str, PolicySpec] = {}
+
+def register_policy(name: str, factory: Callable[..., SchedulingPolicy],
+                    description: str = "",
+                    rtas: Optional[Dict[str, Callable]] = None) -> None:
+    """Register (or replace) a scheduling approach under ``name``."""
+    _REGISTRY[name] = PolicySpec(name=name, factory=factory,
+                                 description=description,
+                                 rtas=dict(rtas or {}))
+
+
+def policy_spec(name: str) -> PolicySpec:
+    if name not in _REGISTRY:
+        raise ValueError(
+            f"unknown scheduling approach {name!r}; "
+            f"registered: {', '.join(sorted(_REGISTRY))}")
+    return _REGISTRY[name]
+
+
+def make_policy(name: str, **kw) -> SchedulingPolicy:
+    return policy_spec(name).factory(**kw)
+
+
+def available_policies() -> List[str]:
+    return sorted(_REGISTRY)
+

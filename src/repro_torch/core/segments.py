@@ -1,0 +1,438 @@
+"""The GPU-access-segment abstraction shared by analysis, simulator, and
+runtime (DESIGN.md §6).
+
+The paper's entire contribution is controlling *where* preemption can
+happen: at the boundaries of GPU access segments (the IOCTL macro / the
+kernel thread's runlist rewrites).  This module is the single place that
+segment structure is defined, so the three layers that consume it cannot
+drift apart:
+
+  * **analysis** — :class:`GpuSegment` is the G_{i,j} = (G^m, G^e) pair of
+    Sec. IV; ``task_model.Task`` profiles (and ``taskgen``) are built from
+    it, and :class:`WorkloadProfile` maps *measured* per-slice times onto
+    the η/G/ε parameters the RTAs consume;
+  * **simulator** — :func:`segment_layout` is the canonical expansion of a
+    task's segments into the alternating piece sequence
+    (cpu → [upd] gm ge [upde] → …) that ``core.simulator.build_pieces``
+    samples durations onto;
+  * **runtime** — :class:`SlicedOp` is a resumable device operation (K
+    grid-slices per dispatch, explicit carry between dispatches) and
+    :class:`SegmentedWorkload` is a job body expressed as alternating host
+    work and sliced device segments; ``sched.executor.DeviceExecutor.
+    run_sliced`` re-checks admission before every slice, so the observed
+    preemption delay is bounded by **one slice** (+ the runlist-update
+    cost ε) instead of a whole device program.
+
+Nothing here imports torch at module level — the analysis side stays
+importable on hosts without an accelerator stack; :func:`block_until_ready`
+imports it lazily.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import TYPE_CHECKING, Any, Callable, List, Optional, Tuple
+
+if TYPE_CHECKING:  # pragma: no cover
+    from .task_model import Task
+
+
+# --------------------------------------------------------------------------
+# analysis face: the G_{i,j} = (G^m, G^e) pair of Sec. IV
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class GpuSegment:
+    """One GPU segment G_{i,j} = (G^m_{i,j}, G^e_{i,j}).
+
+    ``misc`` is the CPU-side launch/driver work (WCET), ``exec`` the pure
+    GPU execution; best-case fields default to the WCET (deterministic
+    execution) and feed the reduced-pessimism analysis (Sec. VI-C)."""
+
+    misc: float  # G^m_{i,j}: CPU-side launch/driver work (WCET)
+    exec: float  # G^e_{i,j}: pure GPU execution (WCET)
+    misc_best: Optional[float] = None
+    exec_best: Optional[float] = None
+
+    def __post_init__(self):
+        if self.misc < 0 or self.exec < 0:
+            raise ValueError("segment times must be non-negative")
+        if self.misc_best is None:
+            object.__setattr__(self, "misc_best", self.misc)
+        if self.exec_best is None:
+            object.__setattr__(self, "exec_best", self.exec)
+        if self.misc_best > self.misc or self.exec_best > self.exec:
+            raise ValueError("best-case must not exceed WCET")
+
+    @property
+    def total(self) -> float:
+        """G_{i,j} <= G^m + G^e (we use the conservative sum)."""
+        return self.misc + self.exec
+
+
+# --------------------------------------------------------------------------
+# simulator face: the canonical segment -> piece expansion
+# --------------------------------------------------------------------------
+
+def segment_layout(task: "Task", with_ioctl: bool) -> List[Tuple[str, int]]:
+    """The alternating piece structure of one job of ``task``:
+    ``[("cpu", j), ("gm", j), ("upd", j), ("ge", j), ("upde", j), ...]``.
+
+    This is the one definition of where segment boundaries (and therefore
+    the IOCTL approach's runlist updates — the preemption points) sit;
+    ``simulator.build_pieces`` samples durations onto it and the runtime's
+    :class:`SegmentedWorkload` mirrors it with real host work and sliced
+    device dispatches.  ``upd`` (begin, needs the core) and ``upde`` (end,
+    driver completion context) bracket the pure-GPU piece only under the
+    IOCTL policy."""
+    layout: List[Tuple[str, int]] = []
+    nc, ng = task.eta_c, task.eta_g
+    for j in range(max(nc, ng)):
+        if j < nc:
+            layout.append(("cpu", j))
+        if j < ng:
+            layout.append(("gm", j))
+            if with_ioctl:
+                layout.append(("upd", j))
+            layout.append(("ge", j))
+            if with_ioctl:
+                layout.append(("upde", j))
+    return layout
+
+
+# --------------------------------------------------------------------------
+# runtime face: sliced, resumable device operations
+# --------------------------------------------------------------------------
+
+@dataclass
+class SlicedOp:
+    """A resumable device operation: ``n_slices`` bounded-duration
+    dispatches threading an explicit carry.
+
+      carry = op.init()
+      for i in range(op.n_slices):   # preemption point before every slice
+          carry = op.step(carry, i)
+      out = op.finalize(carry)
+
+    The carry is an arbitrary pytree (kernel-specific: softmax row stats
+    for attention, the recurrent h/S state for mamba/rwkv, the KV cache +
+    emitted tokens for serving decode), so ``sched.checkpointer`` can
+    snapshot it mid-job and a crashed or preempted job can resume at the
+    last completed slice instead of re-running the whole segment."""
+
+    n_slices: int
+    init: Callable[[], Any]
+    step: Callable[[Any, int], Any]
+    finalize: Callable[[Any], Any]
+    label: str = ""
+
+    def __post_init__(self):
+        if self.n_slices < 1:
+            raise ValueError("a SlicedOp needs at least one slice")
+
+    def run(self, carry: Any = None, start: int = 0) -> Any:
+        """Inline execution (no executor): all slices, then finalize.
+        ``carry``/``start`` resume from a snapshot."""
+        if carry is None:
+            carry = self.init()
+        for i in range(start, self.n_slices):
+            carry = self.step(carry, i)
+        return self.finalize(carry)
+
+
+def n_slices_for(total: int, per_slice: int) -> int:
+    """Number of slices covering ``total`` grid steps at ``per_slice``
+    steps per dispatch (last slice may be short)."""
+    if per_slice < 1:
+        raise ValueError("per_slice must be >= 1")
+    return -(-total // per_slice)
+
+
+# --------------------------------------------------------------------------
+# measured profiles: real slices -> the paper's η/G/m_i/ε parameters
+# --------------------------------------------------------------------------
+
+@dataclass
+class SliceProfile:
+    """Measured timing of one sliced device segment.
+
+    ``slice_ms[k]`` is the worst observed wall time of slice ``k`` across
+    repetitions; ``init_ms``/``finalize_ms`` are the host-side carry
+    setup/teardown around the dispatch loop (the G^m analogue)."""
+
+    label: str
+    slice_ms: List[float]
+    init_ms: float = 0.0
+    finalize_ms: float = 0.0
+
+    @property
+    def n_slices(self) -> int:
+        return len(self.slice_ms)
+
+    @property
+    def exec_ms(self) -> float:
+        """G^e: total pure device time of the segment."""
+        return sum(self.slice_ms)
+
+    @property
+    def misc_ms(self) -> float:
+        """G^m: CPU-side launch/teardown work of the segment."""
+        return self.init_ms + self.finalize_ms
+
+    @property
+    def max_slice_ms(self) -> float:
+        """The preemption-delay bound this segment imposes: a higher-
+        priority arrival waits at most one in-flight slice (the ε analogue
+        of thread-block-boundary preemption)."""
+        return max(self.slice_ms)
+
+    def to_gpu_segment(self, margin: float = 1.0) -> GpuSegment:
+        """The analysis G_{i,j} this measured segment occupies, inflated
+        by ``margin`` (measured times are observations, not WCETs)."""
+        return GpuSegment(misc=self.misc_ms * margin,
+                          exec=self.exec_ms * margin)
+
+
+@dataclass
+class WorkloadProfile:
+    """Measured profile of a whole job body: alternating host segments and
+    sliced device segments — the runtime-measured counterpart of the
+    analysis Task (η^c host segments, η^g device segments)."""
+
+    name: str
+    host_ms: List[float] = field(default_factory=list)
+    device: List[SliceProfile] = field(default_factory=list)
+
+    @property
+    def eta_c(self) -> int:
+        return len(self.host_ms)
+
+    @property
+    def eta_g(self) -> int:
+        return len(self.device)
+
+    @property
+    def max_slice_ms(self) -> float:
+        """Worst single dispatch across all device segments — the residual
+        a newly admitted higher-priority job may have to wait out."""
+        return max((s.max_slice_ms for s in self.device), default=0.0)
+
+    def epsilon_ms(self, update_cost_ms: float = 0.0) -> float:
+        """The ε the admission test should use on this platform: the
+        runlist-update (admission mutex) cost plus the bounded residual of
+        one in-flight slice.  Pre-slicing, this had to cover the *longest
+        whole device program* in the system."""
+        return update_cost_ms + self.max_slice_ms
+
+    def segments_ms(self, margin: float = 1.0
+                    ) -> Tuple[List[float], List[Tuple[float, float]]]:
+        """(host_segments_ms, [(misc_ms, exec_ms), ...]) with ``margin``
+        applied — the shape ``sched.admission.JobProfile`` consumes."""
+        host = [h * margin for h in self.host_ms]
+        dev = [(s.misc_ms * margin, s.exec_ms * margin)
+               for s in self.device]
+        return host, dev
+
+    def to_task(self, period_ms: float, priority: int, *,
+                deadline_ms: Optional[float] = None, cpu: int = 0,
+                device: int = 0, best_effort: bool = False,
+                margin: float = 1.0) -> "Task":
+        """Build the analysis Task directly (the admission-controller path
+        goes through ``JobProfile.from_workload`` instead)."""
+        from .task_model import Task
+        host, _ = self.segments_ms(margin)
+        return Task(
+            name=self.name,
+            cpu_segments=host or [0.0],
+            gpu_segments=[s.to_gpu_segment(margin) for s in self.device],
+            period=period_ms,
+            deadline=deadline_ms or period_ms,
+            cpu=cpu, priority=priority,
+            best_effort=best_effort, device=device)
+
+
+def block_until_ready(tree: Any) -> Any:
+    """Wait until the device work producing ``tree`` has finished.
+
+    CUDA launches return before the card runs them, so a slice's wall
+    time is its device residency only after this sync.  Every CUDA tensor
+    in ``tree`` (nested dicts, lists and tuples) has its device's current
+    stream synchronized, once per device; CPU tensors and other leaves
+    are already complete.  Returns ``tree``."""
+    devices = set()
+    stack = [tree]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend(node.values())
+        elif isinstance(node, (list, tuple)):
+            stack.extend(node)
+        elif getattr(node, "is_cuda", False):
+            devices.add(node.device)
+    if devices:
+        import torch
+        for dev in devices:
+            torch.cuda.current_stream(dev).synchronize()
+    return tree
+
+
+def measure_sliced(make_op: Callable[[], SlicedOp], reps: int = 3,
+                   label: Optional[str] = None) -> SliceProfile:
+    """Time one sliced device segment: per-slice wall times (worst over
+    ``reps`` runs, first run treated as compile warm-up when reps > 1),
+    plus the host-side init/finalize cost.  Each ``step`` is synchronized
+    (``block_until_ready``) so a slice's time is its real device residency
+    — the quantity that bounds the preemption delay."""
+    import time as _time
+
+    runs: List[Tuple[float, List[float], float]] = []
+    op_label = "segment"
+    for _ in range(max(reps, 1)):
+        op = make_op()
+        op_label = op.label or op_label
+        t0 = _time.perf_counter()
+        carry = op.init()
+        carry = block_until_ready(carry)
+        t_init = (_time.perf_counter() - t0) * 1e3
+        times = []
+        for i in range(op.n_slices):
+            t0 = _time.perf_counter()
+            carry = op.step(carry, i)
+            carry = block_until_ready(carry)
+            times.append((_time.perf_counter() - t0) * 1e3)
+        t0 = _time.perf_counter()
+        block_until_ready(op.finalize(carry))
+        runs.append((t_init, times, (_time.perf_counter() - t0) * 1e3))
+    if len(runs) > 1:
+        runs = runs[1:]  # drop the compile-polluted warm-up run
+    return SliceProfile(
+        label=label or op_label,
+        slice_ms=[max(r[1][i] for r in runs)
+                  for i in range(len(runs[0][1]))],
+        init_ms=max(r[0] for r in runs),
+        finalize_ms=max(r[2] for r in runs))
+
+
+# --------------------------------------------------------------------------
+# runtime workloads: a job body as alternating host/device segments
+# --------------------------------------------------------------------------
+
+@dataclass
+class _Entry:
+    kind: str                      # "host" | "device"
+    fn: Callable                   # host thunk | () -> SlicedOp factory
+    label: str = ""
+
+
+class SegmentedWorkload:
+    """A job body expressed in the paper's task structure: alternating
+    host (CPU) segments and sliced device (GPU-access) segments.
+
+    The same object serves all three layers:
+
+      * ``bind(executor)`` → an ``RTJob`` body that brackets each device
+        segment with ``device_segment()`` (the IOCTL macro) and dispatches
+        it slice-by-slice via ``executor.run_sliced`` — preemption delay
+        bounded by one slice;
+      * ``profile(reps=...)`` → a :class:`WorkloadProfile` of measured
+        host times and per-slice device times;
+      * the profile's η/G/ε view feeds ``sched.admission`` (via
+        ``JobProfile.from_workload``), closing the loop real kernel →
+        measured segments → RTA admission → executor enforcement.
+    """
+
+    def __init__(self, name: str):
+        self.name = name
+        self._entries: List[_Entry] = []
+
+    # -- construction ------------------------------------------------------
+    def host(self, fn: Callable[[], Any],
+             label: str = "") -> "SegmentedWorkload":
+        """Append a host (CPU) segment: a plain thunk."""
+        self._entries.append(_Entry("host", fn, label))
+        return self
+
+    def device(self, make_op: Callable[[], SlicedOp],
+               label: str = "") -> "SegmentedWorkload":
+        """Append a device segment: a factory producing a fresh
+        :class:`SlicedOp` per release (carries are single-use)."""
+        self._entries.append(_Entry("device", make_op, label))
+        return self
+
+    @property
+    def eta_c(self) -> int:
+        return sum(1 for e in self._entries if e.kind == "host")
+
+    @property
+    def eta_g(self) -> int:
+        return sum(1 for e in self._entries if e.kind == "device")
+
+    # -- runtime -----------------------------------------------------------
+    def bind(self, executor, device: Optional[int] = None) -> Callable:
+        """An ``RTJob`` body running this workload under ``executor``.
+
+        ``device`` pins the job to one accelerator of a multi-device
+        platform: the body binds ``job.device`` on first run (and a
+        ``ClusterExecutor`` routes every dispatch by it), while a plain
+        ``DeviceExecutor`` must *be* that device (``device_index``
+        checked).  A job already bound elsewhere raises — the
+        migration-free invariant (DESIGN.md §7)."""
+        def body(job, it):
+            if device is not None:
+                bound = getattr(job, "device", None)
+                if bound is None:
+                    job.device = device
+                elif bound != device:
+                    raise RuntimeError(
+                        f"job {job.name!r} is bound to device {bound}, "
+                        f"workload is pinned to device {device}")
+                ex_dev = getattr(executor, "device_index", None)
+                if ex_dev is not None and ex_dev != device:
+                    raise RuntimeError(
+                        f"workload pinned to device {device} cannot run "
+                        f"on executor of device {ex_dev}")
+            self.run(executor, job)
+        return body
+
+    def run(self, executor, job) -> List[Any]:
+        """Execute one release: host segments inline, device segments
+        through the executor's sliced dispatch loop (admission re-checked
+        before every slice).  Returns the device segments' outputs."""
+        outs = []
+        for e in self._entries:
+            if e.kind == "host":
+                e.fn()
+            else:
+                with executor.device_segment(job):
+                    outs.append(executor.run_sliced(job, e.fn()))
+        return outs
+
+    # -- measurement -------------------------------------------------------
+    def profile(self, reps: int = 3) -> WorkloadProfile:
+        """Measure every segment (executor-free, device-synchronized).
+        Host thunks run once per rep (worst time kept); device segments go
+        through :func:`measure_sliced`."""
+        import time as _time
+
+        prof = WorkloadProfile(name=self.name)
+        for e in self._entries:
+            if e.kind == "host":
+                times = []
+                for _ in range(max(reps, 1)):
+                    t0 = _time.perf_counter()
+                    e.fn()
+                    times.append((_time.perf_counter() - t0) * 1e3)
+                if len(times) > 1:
+                    times = times[1:]  # drop the compile-polluted warm-up
+                prof.host_ms.append(max(times))
+            else:
+                prof.device.append(measure_sliced(
+                    e.fn, reps=reps, label=e.label or None))
+        return prof
+
+
+__all__ = [
+    "GpuSegment", "segment_layout",
+    "SlicedOp", "n_slices_for",
+    "SliceProfile", "WorkloadProfile", "measure_sliced", "block_until_ready",
+    "SegmentedWorkload",
+]

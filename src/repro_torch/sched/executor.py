@@ -1,0 +1,407 @@
+"""Preemptive priority-based device executor — the CUDA realization of the
+paper's runlist control (see DESIGN.md §2).
+
+The device executes one dispatch (a program or a slice of CUDA launches)
+at a time, and every dispatch ends in a sync of the CUDA streams its
+outputs live on (``core.segments.block_until_ready``): launches are
+asynchronous, so without the sync a slice's time would be its enqueue
+time and the next job's kernels would queue behind slices already
+enqueued — both epsilon and the one-slice preemption bound would be
+wrong.  A ``SchedulingPolicy`` resolved from the `core.policy` registry
+decides *whose* programs may dispatch.  The policy object is the very same class
+the simulator drives, so Algorithms 1 and 2 have exactly one
+implementation:
+
+  * ``policy="ioctl"``: jobs bracket device segments with the
+    ``device_segment(job)`` context manager.  Admission follows
+    Algorithm 2 over the shared ``Alg2State`` (task_running/task_pending);
+    the runlist-update critical section is guarded by a mutex (the
+    rt_mutex analogue) and its measured cost is the epsilon of the
+    analysis (benchmarks/overhead.py).
+
+  * ``policy="kthread"``: a scheduler thread polls job states every
+    ``poll_interval`` and reserves the device for the highest-priority
+    active real-time job at *job* granularity via the shared
+    ``pick_reserved`` — no job code changes (opaque jobs).
+
+  * ``policy="unmanaged"``: every dispatch is admitted (default driver).
+
+Any other registered policy (e.g. ``sync_priority``) works the same way:
+the executor only ever talks to the runtime face of ``SchedulingPolicy``.
+
+Preemption takes effect at program boundaries: before each dispatch the
+executor re-checks that the calling job is still admitted (and otherwise
+waits, busy-spinning or suspending per ``wait_mode``).  Long device work
+goes through ``run_sliced`` — a ``core.segments.SlicedOp`` dispatched
+K grid-slices at a time with an explicit carry — so the preemption delay
+is *enforced* to be at most one slice (the epsilon analogue of
+thread-block-boundary preemption), measured per slice into
+``job.stats.slice_times``, and checkpointable mid-op (DESIGN.md §6).
+"""
+from __future__ import annotations
+
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Callable, List, Optional, Union
+
+from ..core.policy import SchedulingPolicy, policy_spec
+from ..core.segments import block_until_ready
+from . import faultinject
+from .fault import DeviceFailedError, DeviceHealth, JobEvicted
+from .job import RTJob
+
+
+@dataclass(frozen=True)
+class TraceEvent:
+    """One executor event: ``start``/``complete`` (job lifecycle),
+    ``preempt``/``resume``/``dispatch`` (admission at a program boundary),
+    or ``update`` (a runlist rewrite, with the policy-state snapshot the
+    conformance harness replays — DESIGN.md §7)."""
+    t: float                  # time.monotonic() at emission
+    device: int               # DeviceExecutor.device_index
+    event: str
+    job: str                  # job name ("" for a poll update clearing it)
+    info: dict = field(default_factory=dict)
+
+
+class ExecutorTrace:
+    """Lightweight event recorder attached to a ``DeviceExecutor``.
+
+    Every emission happens under the executor's runlist mutex, so the
+    event order *is* the order the policy state machine saw — which is
+    what lets ``tests/conformance.py`` replay the recorded update
+    sequence through a fresh ``Alg2State``/``pick_reserved`` and through
+    the simulator, and assert decision-for-decision agreement."""
+
+    def __init__(self):
+        self.events: List[TraceEvent] = []
+
+    def emit(self, device: int, event: str, job: str = "", **info) -> None:
+        self.events.append(TraceEvent(time.monotonic(), device, event,
+                                      job, info))
+
+    def of(self, *events: str) -> List[TraceEvent]:
+        return [e for e in self.events if e.event in events]
+
+    def jobs(self) -> List[str]:
+        return sorted({e.job for e in self.events if e.event == "start"})
+
+
+class DeviceExecutor:
+    def __init__(self, policy: Union[str, SchedulingPolicy] = "ioctl",
+                 wait_mode: str = "suspend",
+                 poll_interval: float = 0.001,
+                 device_index: int = 0,
+                 trace: Optional[ExecutorTrace] = None,
+                 health: Optional[DeviceHealth] = None,
+                 fault_injector: Optional[
+                     "faultinject.FaultInjector"] = None):
+        """``policy`` is a registry name (or instance).  ``device_index``
+        names the accelerator this executor drives; ``trace`` attaches an
+        :class:`ExecutorTrace` event recorder.  ``health`` attaches a
+        :class:`~repro_torch.sched.fault.DeviceHealth` slice-level
+        heartbeat (armed around every dispatch); ``fault_injector``
+        installs a deterministic fault plan — when omitted,
+        ``$REPRO_FAULT_PLAN`` is consulted (DESIGN.md §10)."""
+        assert wait_mode in ("busy", "suspend")
+        if isinstance(policy, str):
+            spec = policy_spec(policy)
+            self.policy_name = spec.name
+            self.policy = spec.factory()
+        else:
+            self.policy = policy
+            self.policy_name = policy.name
+        if self.policy.requires_busy_wait and wait_mode != "busy":
+            # Sec. V-A: self-suspension would be misread as a state change
+            wait_mode = "busy"
+        self.wait_mode = wait_mode
+        self.poll_interval = poll_interval
+        self.device_index = device_index
+        self.trace = trace
+        self.health = health
+        self.fault_injector = (fault_injector if fault_injector is not None
+                               else faultinject.from_env())
+        self.failed = False               # set by fail(); never cleared
+        self.fail_reason = ""
+        self._mutex = threading.Lock()      # runlist-update rt_mutex
+        self._cv = threading.Condition(self._mutex)
+        self._active: List[RTJob] = []       # jobs currently in a release
+        self._device_lock = threading.Lock()  # serializes program dispatch
+        self.update_times: List[float] = []   # measured epsilon samples
+        self.dispatches = 0
+        self._poller: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+        self.policy.runtime_attach(self)
+        if self.policy.wants_poll_thread:
+            self._poller = threading.Thread(target=self._poll_loop,
+                                            daemon=True, name="kthread")
+            self._poller.start()
+
+    # ------------------------------------------------------------------
+    # Algorithm 2 state views (the trace's update events record them)
+    # ------------------------------------------------------------------
+    @property
+    def task_running(self) -> List[RTJob]:
+        return getattr(self.policy, "running", [])
+
+    @property
+    def task_pending(self) -> List[RTJob]:
+        return getattr(self.policy, "pending", [])
+
+    # ------------------------------------------------------------------
+    # job lifecycle (state changes the polling scheduler watches)
+    # ------------------------------------------------------------------
+    def on_job_start(self, job: RTJob) -> None:
+        with self._mutex:
+            self._active.append(job)
+            self.policy.runtime_on_start(job)
+            self._emit("start", job, priority=job.priority,
+                       device_priority=job.device_priority, rt=job.is_rt)
+
+    def on_job_complete(self, job: RTJob) -> None:
+        with self._mutex:
+            if job in self._active:
+                self._active.remove(job)
+            self.policy.runtime_on_complete(job)
+            self._emit("complete", job)
+            self._cv.notify_all()
+
+    def shutdown(self) -> None:
+        self._stop.set()
+        if self._poller:
+            self._poller.join(timeout=1.0)
+
+    def fail(self, reason: str = "") -> None:
+        """Declare this device failed (fail-over entry point): every
+        dispatch — in flight, waiting, or future — raises
+        :class:`DeviceFailedError`, and suspended waiters are woken so
+        they observe the verdict immediately.  Permanent: a failed
+        device never rejoins an epoch (the cluster would need a fresh
+        executor, i.e. a fresh binding epoch, anyway)."""
+        with self._mutex:
+            self.failed = True
+            self.fail_reason = reason
+            self._emit("device_failed", None, reason=reason)
+            self._cv.notify_all()
+
+    # ------------------------------------------------------------------
+    # poll mode: Algorithm 1 (job-granular reservation, shared rule)
+    # ------------------------------------------------------------------
+    def _poll_loop(self) -> None:
+        while not self._stop.is_set():
+            with self._mutex:
+                rt = [j for j in self._active if j.is_rt]
+                decision = self.policy.runtime_pick(rt)
+                # time only the rewrite, not the job-list scan — the scan
+                # is the paper's negligible polling check (footnote 3)
+                t0 = time.perf_counter()
+                if self.policy.runtime_apply(decision):
+                    self._cv.notify_all()
+                    self.update_times.append(time.perf_counter() - t0)
+                    self._emit(
+                        "update", decision, which="poll",
+                        reserved=decision.name if decision else None,
+                        candidates=tuple((j.name, j.device_priority)
+                                         for j in rt))
+            time.sleep(self.poll_interval)
+
+    # ------------------------------------------------------------------
+    # IOCTL approach: Algorithm 2 entry points (caller holds self._mutex),
+    # timing each runlist update into update_times; device_segment() is
+    # the public path.
+    # ------------------------------------------------------------------
+    def _ioctl_add(self, job: RTJob) -> None:
+        t0 = time.perf_counter()
+        rewrote = self.policy.runtime_segment_begin(job)
+        self.update_times.append(time.perf_counter() - t0)
+        self._emit_alg2("begin", job, rewrote)
+        self._cv.notify_all()
+
+    def _ioctl_remove(self, job: RTJob) -> None:
+        t0 = time.perf_counter()
+        rewrote = self.policy.runtime_segment_end(job)
+        self.update_times.append(time.perf_counter() - t0)
+        self._emit_alg2("end", job, rewrote)
+        self._cv.notify_all()
+
+    # ------------------------------------------------------------------
+    # trace emission (no-ops when no ExecutorTrace is attached); every
+    # call site holds self._mutex, so the event order is the order the
+    # policy state machine saw
+    # ------------------------------------------------------------------
+    def _emit(self, event: str, job: Optional[RTJob], **info) -> None:
+        if self.trace is not None:
+            self.trace.emit(self.device_index, event,
+                            job.name if job is not None else "", **info)
+
+    def _emit_alg2(self, which: str, job: RTJob, rewrote) -> None:
+        if self.trace is not None:
+            self._emit("update", job, which=which, rewrote=bool(rewrote),
+                       running=tuple(j.name for j in self.task_running),
+                       pending=tuple(j.name for j in self.task_pending))
+
+    # ------------------------------------------------------------------
+    # admission check used at every program boundary
+    # ------------------------------------------------------------------
+    def _admitted(self, job: RTJob) -> bool:
+        return self.policy.runtime_admitted(job)
+
+    def _wait_admitted(self, job: RTJob) -> None:
+        # "preempt" is emitted on the first denied check, "resume" when
+        # admission comes back, "dispatch" at every admission pass — all
+        # under the mutex, so a dispatch event is totally ordered against
+        # the runlist updates that justified it (conformance harness).
+        blocked = False
+        if self.wait_mode == "busy":
+            while True:
+                with self._mutex:
+                    self._check_containment(job)
+                    if self._admitted(job):
+                        if blocked:
+                            self._emit("resume", job)
+                        self._emit("dispatch", job, uid=job.uid)
+                        return
+                    if not blocked:
+                        blocked = True
+                        self._emit("preempt", job)
+                # busy-wait: a sub-poll-interval yield, not sleep(0) — a
+                # zero-sleep spin churns the GIL hard enough to starve
+                # the *running* job's thread on CPython, which shows up
+                # as cross-device interference a real spinning core
+                # would never cause
+                time.sleep(0.0005)
+        else:
+            with self._cv:
+                while True:
+                    self._check_containment(job)
+                    if self._admitted(job):
+                        break
+                    if not blocked:
+                        blocked = True
+                        self._emit("preempt", job)
+                    self._cv.wait(timeout=0.05)
+                if blocked:
+                    self._emit("resume", job)
+                self._emit("dispatch", job, uid=job.uid)
+
+    def _check_containment(self, job: RTJob) -> None:
+        """Raise the orderly-stop verdict at a preemption point: a
+        failed device (fail-over) or an evicted job (load shedding)
+        must not dispatch again — the containment boundary of
+        DESIGN.md §10.  Called with the mutex held or not; reads only
+        monotonic flags."""
+        if self.failed:
+            raise DeviceFailedError(
+                f"device {self.device_index} failed"
+                + (f": {self.fail_reason}" if self.fail_reason else ""))
+        if job.evicted:
+            raise JobEvicted(f"job {job.name!r} evicted "
+                             f"({job.evict_reason or 'shed'})")
+
+    # ------------------------------------------------------------------
+    # public API
+    # ------------------------------------------------------------------
+    class _Segment:
+        def __init__(self, ex: "DeviceExecutor", job: RTJob):
+            self.ex, self.job = ex, job
+
+        def __enter__(self):
+            if self.ex.policy.needs_segment_hooks:
+                with self.ex._mutex:
+                    self.ex._ioctl_add(self.job)
+            return self
+
+        def __exit__(self, *exc):
+            if self.ex.policy.needs_segment_hooks:
+                with self.ex._mutex:
+                    self.ex._ioctl_remove(self.job)
+            return False
+
+    def device_segment(self, job: RTJob) -> "_Segment":
+        """The single macro of the IOCTL approach (begin+end)."""
+        return DeviceExecutor._Segment(self, job)
+
+    def run(self, job: RTJob, program: Callable, *args, **kw):
+        """Dispatch one device program for ``job``; blocks until the result
+        is ready.  Re-checks admission first (preemption point)."""
+        self._wait_admitted(job)
+        with self._device_lock:
+            self.dispatches += 1
+            if self.health is not None:
+                self.health.slice_begin(job.name, -1)
+            try:
+                if self.fault_injector is not None:
+                    self.fault_injector.fire(device=self.device_index,
+                                             job=job.name, slice_idx=-1)
+                out = program(*args, **kw)
+                block_until_ready(out)
+            except (DeviceFailedError, JobEvicted):
+                raise
+            except Exception as e:  # noqa: BLE001 — health accounting
+                if self.health is not None:
+                    self.health.record_error(job.name, e)
+                raise
+            finally:
+                if self.health is not None:
+                    self.health.slice_end()
+        return out
+
+    def run_sliced(self, job: RTJob, op, *,
+                   carry=None, start: int = 0,
+                   checkpoint: Optional[Callable] = None,
+                   checkpoint_every: int = 0):
+        """Dispatch a :class:`repro_torch.core.segments.SlicedOp` slice by slice.
+
+        Admission is re-checked before *every* slice, so a higher-priority
+        job waits at most one in-flight slice (+ the runlist-update ε) —
+        the bounded preemption delay the analysis assumes, instead of the
+        whole-op wait of a single monolithic dispatch.  Per-slice wall
+        times land in ``job.stats.slice_times`` (the measured ε-analogue
+        profile).
+
+        ``carry``/``start`` resume from a snapshot; ``checkpoint(i, carry)``
+        is called (outside the device lock) after every
+        ``checkpoint_every``-th slice, e.g. ``sched.checkpointer.
+        save_carry`` — a preempted or crashed job restarts mid-op rather
+        than re-running the segment."""
+        if carry is None:
+            carry = op.init()
+        for i in range(start, op.n_slices):
+            self._wait_admitted(job)
+            carry = self._dispatch_slice(job, op.step, carry, i)
+            if checkpoint is not None and checkpoint_every > 0 \
+                    and (i + 1) % checkpoint_every == 0:
+                checkpoint(i + 1, carry)
+        self._wait_admitted(job)
+        return self._dispatch_slice(job, lambda c, _i: op.finalize(c),
+                                    carry, op.n_slices)
+
+    def _dispatch_slice(self, job: RTJob, step, carry, i: int):
+        """One slice under the device lock: the health heartbeat is
+        armed for exactly the in-flight window (a hung kernel reads as
+        a stalled armed beat), the fault injector fires at the dispatch
+        point, and a slice exception lands in the device's health
+        record before propagating (DESIGN.md §10)."""
+        with self._device_lock:
+            self.dispatches += 1
+            if self.health is not None:
+                self.health.slice_begin(job.name, i)
+            t0 = time.perf_counter()
+            try:
+                if self.fault_injector is not None:
+                    self.fault_injector.fire(device=self.device_index,
+                                             job=job.name, slice_idx=i)
+                out = step(carry, i)
+                block_until_ready(out)
+            except (DeviceFailedError, JobEvicted):
+                raise
+            except Exception as e:  # noqa: BLE001 — health accounting
+                if self.health is not None:
+                    self.health.record_error(job.name, e)
+                raise
+            finally:
+                if self.health is not None:
+                    self.health.slice_end()
+            job.stats.slice_times.append(time.perf_counter() - t0)
+        return out

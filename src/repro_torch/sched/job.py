@@ -1,0 +1,171 @@
+"""Real-time jobs for the device executor.
+
+An ``RTJob`` is the runtime realization of the paper's task model: its
+execution alternates host (CPU) segments and device (GPU) segments, it has
+a fixed priority (and an optionally distinct device priority, Sec. V-C),
+and it is released periodically.
+
+Two integration styles mirror the paper's two approaches:
+  * annotated jobs call ``executor.device_segment(job)`` around their
+    device work (the IOCTL approach's two macros collapse into one context
+    manager);
+  * opaque jobs only expose ``run_once()`` — the polling scheduler manages
+    them with no code changes (the kernel-thread approach).
+"""
+from __future__ import annotations
+
+import itertools
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Callable, List, Optional
+
+from .fault import FaultContained
+
+BEST_EFFORT = -1_000_000
+
+
+class JobState:
+    IDLE = "idle"
+    READY = "ready"
+    RUNNING = "running"
+    DONE = "done"
+
+
+@dataclass
+class JobStats:
+    releases: int = 0
+    completions: int = 0
+    response_times: List[float] = field(default_factory=list)
+    deadline_misses: int = 0
+    slice_times: List[float] = field(default_factory=list)  # seconds
+
+    @property
+    def mort(self) -> Optional[float]:
+        """Maximum observed response time, or ``None`` before the first
+        completion — an idle job must not read as a 0.0 MORT (i.e. as
+        trivially meeting its deadline) in overhead/case-study reports."""
+        return max(self.response_times) if self.response_times else None
+
+    @property
+    def max_slice_time(self) -> Optional[float]:
+        """Longest single sliced dispatch (s) — the preemption-delay bound
+        this job imposes on higher-priority arrivals."""
+        return max(self.slice_times) if self.slice_times else None
+
+
+class RTJob:
+    """A periodically released job executing ``body(job, iteration)``.
+
+    ``body`` runs on the job's own thread; device segments inside it go
+    through the executor (which enforces preemptive priority scheduling at
+    program boundaries)."""
+
+    _uid = itertools.count()
+
+    def __init__(self, name: str, body: Callable, period_s: float,
+                 priority: int, deadline_s: Optional[float] = None,
+                 device_priority: Optional[int] = None,
+                 best_effort: bool = False, n_iterations: int = 1,
+                 device: Optional[int] = None):
+        self.uid = next(RTJob._uid)
+        self.name = name
+        self.body = body
+        self.period_s = period_s
+        self.deadline_s = deadline_s or period_s
+        self.priority = BEST_EFFORT if best_effort else priority
+        # a best-effort job has no real-time priority on either side of
+        # the platform: an explicit device_priority is ignored for BE
+        # jobs, or Alg2State.top_running could rank a BE member above an
+        # arriving RT job and push the RT job to task_pending behind
+        # best-effort work (found by tests/test_policy_fuzz.py)
+        self.device_priority = (self.priority
+                                if device_priority is None or best_effort
+                                else device_priority)
+        self.best_effort = best_effort
+        self.n_iterations = n_iterations
+        # accelerator this job's device segments are bound to; None until
+        # placed (ClusterExecutor.submit / bind_job set it, and the
+        # migration-free invariant keeps it fixed for the job's lifetime)
+        self.device = device
+        self.state = JobState.IDLE
+        self.stats = JobStats()
+        self.release_time = 0.0
+        # containment bookkeeping (DESIGN.md §10): evicted is the
+        # platform's orderly-stop verdict (load shedding / fail-over
+        # drain) — the executor raises FaultContained at the next
+        # preemption point; error records why a job ended abnormally,
+        # so a dead body is observable instead of a silently lost thread
+        self.evicted = False
+        self.evict_reason = ""
+        self.error: Optional[BaseException] = None
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    @property
+    def is_rt(self) -> bool:
+        return not self.best_effort
+
+    # ------------------------------------------------------------------
+    def start(self, executor, stop_after_s: Optional[float] = None) -> None:
+        self._thread = threading.Thread(
+            target=self._run, args=(executor, stop_after_s),
+            name=f"job-{self.name}", daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+
+    def evict(self, reason: str = "") -> None:
+        """Orderly mid-segment stop: the executor raises ``JobEvicted``
+        at the job's next preemption point (slice boundary), so an
+        evicted sliced job loses at most the slices since its last
+        checkpointed carry — the resume point of a shed job."""
+        self.evicted = True
+        self.evict_reason = reason
+        self._stop.set()
+
+    def join(self, timeout: Optional[float] = None) -> None:
+        if self._thread:
+            self._thread.join(timeout)
+
+    def _run(self, executor, stop_after_s) -> None:
+        t0 = time.monotonic()
+        next_release = t0
+        for it in range(self.n_iterations):
+            if self._stop.is_set():
+                break
+            if stop_after_s is not None \
+                    and time.monotonic() - t0 >= stop_after_s:
+                break
+            now = time.monotonic()
+            if now < next_release:
+                time.sleep(next_release - now)
+            self.release_time = max(next_release, now)
+            next_release = self.release_time + self.period_s
+            self.state = JobState.RUNNING
+            self.stats.releases += 1
+            executor.on_job_start(self)
+            try:
+                self.body(self, it)
+            except FaultContained as e:
+                # orderly platform stop (eviction / device fail-over):
+                # the iteration did not complete — no completion, no
+                # response-time sample — but the job ends cleanly and
+                # the verdict is observable on job.error
+                self.error = e
+                break
+            except Exception as e:  # noqa: BLE001 — no silent job loss
+                # a body failure must surface as state, not as a dead
+                # thread whose traceback nobody joined on
+                self.error = e
+                break
+            finally:
+                executor.on_job_complete(self)
+            resp = time.monotonic() - self.release_time
+            self.stats.completions += 1
+            self.stats.response_times.append(resp)
+            if resp > self.deadline_s and self.is_rt:
+                self.stats.deadline_misses += 1
+            self.state = JobState.READY
+        self.state = JobState.DONE
